@@ -1,9 +1,9 @@
-"""TPU-native Fréchet Audio Distance framework.
+"""Fréchet Audio Distance in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of gibiansky/frechet-audio-distance-exported
-(reference mounted at /root/reference): same seven model variants and public
-API, rebuilt for TPU — batched static-shape pipelines, matmul-DFT frontends,
-on-device streaming statistics, and mesh data parallelism.
+A ground-up JAX/XLA re-design of gibiansky/frechet-audio-distance-exported:
+same seven model variants and public API, run on the GPU — batched
+static-shape pipelines, matmul-DFT frontends, on-device streaming
+statistics, and mesh data parallelism.
 """
 
 from .fad import FrechetAudioDistance

@@ -1,4 +1,4 @@
-"""TPU-native Fréchet Audio Distance — public API.
+"""Fréchet Audio Distance — public API.
 
 API surface mirrors the reference FrechetAudioDistance (reference:
 fad.py:164-662): same constructor kwargs, same methods
@@ -6,11 +6,11 @@ fad.py:164-662): same constructor kwargs, same methods
 calculate_embd_statistics / calculate_frechet_distance / _load_audio_files),
 same model names, same -1 error sentinel and .npy embedding caching.
 
-What changed underneath (TPU-first):
+What changed underneath:
 - the per-file torch loop became a batched, bucketed, jitted JAX pipeline
   (pipeline.EmbeddingPipeline);
 - models are JAX pytrees loaded from .npz bundles, not torch artifacts;
-- statistics can stream on device and all-reduce over a TPU mesh
+- statistics can stream on device and all-reduce over a device mesh
   (parallel.embed); scoring supports a fully on-device Fréchet epilogue.
 """
 
@@ -46,7 +46,7 @@ def _save_embeddings(path: str, embds: np.ndarray) -> None:
 
 
 class FrechetAudioDistance:
-    """API-compatible FAD calculator running on TPU via JAX/XLA.
+    """API-compatible FAD calculator running on the GPU via JAX/XLA.
 
     Example:
         >>> fad = FrechetAudioDistance(model_name="vggish")
@@ -80,9 +80,9 @@ class FrechetAudioDistance:
         Extensions:
             weights: 'auto' (load/convert bundle) or 'random' (tests/benches).
             seed: PRNG seed for weights='random'.
-            file_batch / patch_chunk: batching knobs of the TPU pipeline.
+            file_batch / patch_chunk: batching knobs of the device pipeline.
             mesh: optional jax.sharding.Mesh with a 'data' axis
-                (parallel.mesh.data_mesh()); shards batches over chips.
+                (parallel.mesh.data_mesh()); shards batches over devices.
         """
         # Validation + config lookup live in the registry (same error text);
         # duplicating the membership check here invited drift (review r5).
@@ -254,33 +254,38 @@ class FrechetAudioDistance:
                 print("[FAD-TPU] Eval set dir is empty, exiting...")
                 return -1
 
-            # Rank-deficient regime (fewer rows than dims, e.g. PANN's d=2048
-            # over a typical corpus): the Gram-trick epilogue is exact and
-            # avoids the d x d eigendecompositions entirely.
-            d = embds_background.shape[1]
-            n_min = min(len(embds_background), len(embds_eval))
-            # The fast path bypasses calculate_embd_statistics /
-            # calculate_frechet_distance, so it must stand down when a
-            # subclass overrides either hook (reference-API extension
-            # points) — the override must see every score.
-            stock_hooks = (
-                type(self).calculate_embd_statistics
-                is FrechetAudioDistance.calculate_embd_statistics
-                and type(self).calculate_frechet_distance
-                is FrechetAudioDistance.calculate_frechet_distance
-            )
-            if 1 < n_min < d and stock_hooks and not exact_sqrtm():
-                return stats_ops.frechet_distance_lowrank_np(embds_background, embds_eval)
-
-            mu_background, sigma_background = self.calculate_embd_statistics(embds_background)
-            mu_eval, sigma_eval = self.calculate_embd_statistics(embds_eval)
-
-            return self.calculate_frechet_distance(
-                mu_background, sigma_background, mu_eval, sigma_eval
-            )
+            return self._frechet_from_embeddings(embds_background, embds_eval)
         except Exception as e:
             print(f"[FAD-TPU] An error occurred: {e}")
             return -1
+
+    def _frechet_from_embeddings(self, embds_background, embds_eval) -> float:
+        """score()'s host epilogue: statistics of two embedding matrices and
+        the Fréchet distance between them."""
+        # Rank-deficient regime (fewer rows than dims, e.g. PANN's d=2048
+        # over a typical corpus): the Gram-trick epilogue is exact and
+        # avoids the d x d eigendecompositions entirely.
+        d = embds_background.shape[1]
+        n_min = min(len(embds_background), len(embds_eval))
+        # The fast path bypasses calculate_embd_statistics /
+        # calculate_frechet_distance, so it must stand down when a
+        # subclass overrides either hook (reference-API extension
+        # points) — the override must see every score.
+        stock_hooks = (
+            type(self).calculate_embd_statistics
+            is FrechetAudioDistance.calculate_embd_statistics
+            and type(self).calculate_frechet_distance
+            is FrechetAudioDistance.calculate_frechet_distance
+        )
+        if 1 < n_min < d and stock_hooks and not exact_sqrtm():
+            return stats_ops.frechet_distance_lowrank_np(embds_background, embds_eval)
+
+        mu_background, sigma_background = self.calculate_embd_statistics(embds_background)
+        mu_eval, sigma_eval = self.calculate_embd_statistics(embds_eval)
+
+        return self.calculate_frechet_distance(
+            mu_background, sigma_background, mu_eval, sigma_eval
+        )
 
     def _stream_audio_chunks(self, dir: str, dtype: str, chunk_files: int):
         """Decode a directory in bounded chunks with the thread pool working
@@ -348,8 +353,9 @@ class FrechetAudioDistance:
         """Pre-compile the pipeline for clips of the given durations (seconds).
 
         XLA compiles one program per shape bucket; serving deployments call
-        this once (optionally with FAD_TPU_COMPILE_CACHE set) so the first
-        real request doesn't pay tens of seconds of compilation. The
+        this once so the first real request doesn't pay tens of seconds of
+        compilation (the persistent compile cache, config.
+        enable_compilation_cache, carries it to later processes). The
         score(device_stats=True) path runs DIFFERENT jit programs (fused
         embed+stats step, init and update variants), so both are warmed by
         default (review r5); pass device_stats=False to warm only the

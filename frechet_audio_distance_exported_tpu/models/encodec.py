@@ -1,4 +1,4 @@
-"""Encodec SEANet encoder (TPU-native re-implementation).
+"""Encodec SEANet encoder (JAX re-implementation).
 
 The reference ships Meta's Encodec encoder only as an opaque TorchScript trace
 (reference: fad.py:292-295, scripts/export_encodec.py:231-277; architecture
@@ -10,8 +10,8 @@ re-implements the SEANetEncoder itself:
   residual block (ELU -> conv k=3 dim->dim/2 -> ELU -> conv k=1 dim/2->dim,
   plus a k=1 shortcut conv) followed by ELU and a strided conv k=2r, s=r that
   doubles the width (32 -> 64 -> 128 -> 256 -> 512)
-- 2-layer LSTM(512) with residual skip (lax.scan; the input projection of each
-  layer is hoisted out of the scan as one big MXU matmul)
+- 2-layer LSTM(512) with residual skip (lax.scan; layer 0's input
+  projection is hoisted out of the scan as one big matmul)
 - ELU -> output conv k=7 (512 -> 128)
 
 Variant differences (Meta encodec 0.1.x):
@@ -74,12 +74,6 @@ def _sconv(p: dict, x: jnp.ndarray, kernel: int, stride: int, causal: bool) -> j
 
 
 def _res_block(p: dict, x: jnp.ndarray, causal: bool) -> jnp.ndarray:
-    # A fused Pallas version of this block (haloed time tiles, whole
-    # elu->conv3->elu->conv1 + shortcut in VMEM) was built and REJECTED in
-    # round 2d: 32.7 ms vs 31.1 ms XLA on the stage-1 shapes ([32, 240k, 32]
-    # bf16; halo-tile materialization alone cost 14.7 ms, wider tiles fail
-    # Mosaic compilation, and the C=32 minor-dim lane occupancy penalizes
-    # the kernel exactly as it does XLA). Details in TODO.md.
     h = jax.nn.elu(x)
     h = _sconv(p["conv1"], h, kernel=3, stride=1, causal=causal)
     h = jax.nn.elu(h)
@@ -104,44 +98,33 @@ def _slstm(
 ) -> jnp.ndarray:
     """2-layer LSTM with the SEANet residual skip (y = lstm(x) + x).
 
-    Throughput shaping (the LSTM dominates Encodec step time):
+    Structure:
     - layer 0's input projection is hoisted out of the scan as one big
-      [B*T, H] x [H, 4H] MXU matmul;
+      [B*T, H] x [H, 4H] matmul;
     - both layers run in ONE wavefront scan — layer 1's step t consumes
       layer 0's output at t inside the same iteration, so the scan has T
       iterations instead of 2T (identical math, same op order per layer);
     - layer 1's input and recurrent projections fuse into a single
       [B, 2H] x [2H, 4H] matmul;
-    - the scan is unrolled so XLA pipelines consecutive iterations.
+    - the scan is unrolled so XLA can schedule consecutive iterations
+      together.
 
     The carried h/c state, gate nonlinearities, and accumulation always run
     in float32 regardless of the caller's compute dtype: a fully-bf16
     recurrence compounds error over the ~750 sequential steps and destroys
-    the score (measured round 2: FAD 918 vs 3e-4 on identical dirs). In
-    mixed-precision mode the conv stages run bf16 and hand off f32 here.
+    the score (FAD 918 vs 3e-4 on identical dirs). In mixed-precision mode
+    the conv stages run bf16 and hand off f32 here.
 
-    ``op_dtype`` sets ONLY the in-scan recurrent-matmul operand dtype. The
-    scan is AT the recurrent-matmul floor (~11.6 us/step measured vs a
-    ~12.6 us HIGH-precision MXU floor — a Pallas rewrite was priced and
-    dropped), so the one lever is MXU passes: bf16 operands (1 pass instead
-    of HIGH's 3) measure 1.48x (24k shapes) / 1.82x (48k shapes) on the scan
-    with 9.1e-5 relative output error damped by the saturating gates rather
-    than compounded in the f32 carry; FAD deltas 2.2e-10 (24k mixed) and
-    3.9e-5 (48k f32 convs) — scripts/exp_lstm_bf16.py, exp_lstm48_fad.py.
-    encodec_forward passes config.lstm_op_dtype() (bf16 on TPU, f32 on CPU
-    and under an explicit FAD_TPU_MODEL_DTYPE=float32 force; read at trace
-    time like the other env gates).
+    ``op_dtype`` sets ONLY the in-scan recurrent-matmul operand dtype
+    (config.lstm_op_dtype: float32 unless FAD_TPU_LSTM_MATMUL=bfloat16).
     """
     x = x.astype(jnp.float32)
     b, t, h = x.shape
     if not unroll:
-        # The unroll should DIVIDE the step count: a remainder loop costs
-        # ~14% of the scan (measured B=128 bf16-ops, T=750: unroll 20 ->
-        # 23.2 ms vs 20.3-20.5 for 10/30/50/75, all of which divide 750;
-        # 10/30 also divide the 48k T=1500). But a tiny dividing unroll
-        # forfeits the cross-iteration pipelining entirely — worse than the
-        # remainder loop — so step counts with no divisor >= 8 (e.g. prime T
-        # from odd wire buckets) fall back to 20-with-remainder.
+        # Prefer an unroll that DIVIDES the step count (no remainder loop;
+        # 30 divides both the 24k T=750 and the 48k T=1500). Step counts with
+        # no divisor >= 8 (e.g. prime T) take 20 with a remainder loop, since
+        # a tiny unroll gives XLA nothing to schedule across iterations.
         unroll = next(
             (u for u in (32, 30, 25, 20, 16, 15, 12, 10, 8) if t % u == 0), 20
         )
@@ -205,20 +188,6 @@ def encodec_forward(params: dict, x: jnp.ndarray, causal: bool = True) -> jnp.nd
     )
 
 
-def encodec_forward_raw(
-    params: dict, x: jnp.ndarray, causal: bool = True, lstm_op_dtype=None
-) -> jnp.ndarray:
-    """Unjitted forward body for experiment scripts that monkeypatch stage
-    internals (_sconv/_slstm) between variants — the jitted entry's trace
-    cache would serve the pre-swap trace for both. Env knobs resolve at
-    trace time of whatever jit the caller wraps this in."""
-    return _encodec_forward_jit.__wrapped__(
-        params, x, causal,
-        config.lstm_op_dtype() if lstm_op_dtype is None else lstm_op_dtype,
-        None,
-    )
-
-
 @functools.partial(
     jax.jit, static_argnames=("causal", "lstm_op_dtype", "precision")
 )
@@ -232,18 +201,10 @@ def _encodec_forward_jit(
     if x.dtype == jnp.int16:
         x = x.astype(jnp.float32) / 32768.0
     # Mixed-precision entry: the conv stages run in the weights' dtype (bf16
-    # in FAD_TPU_MODEL_DTYPE=bfloat16 mode, 1.77x measured on v5e); _slstm
-    # and conv_out re-enter float32 (their params are never downcast).
+    # in FAD_TPU_MODEL_DTYPE=bfloat16 mode); _slstm and conv_out re-enter
+    # float32 (their params are never downcast).
     x = x.astype(params["conv_in"]["w"].dtype)
     h = jnp.swapaxes(x, 1, 2)  # NWC
-    # The conv stages stay on XLA by design: a fused Pallas conv-stage path
-    # (reflect pads inside the kernels, GN moments produced/consumed lazily)
-    # was built in round 4 and REJECTED on hardware in round 5 — interleaved
-    # full-forward A/B measured the kernels 1.2-2.2x SLOWER than this XLA
-    # lowering (48k: 145.6 ms XLA vs 256.6/174.4 ms fused HIGHEST/DEFAULT;
-    # 24k: 107.8 vs 242.1/166.4). Sixth and final rejected formulation for
-    # these stages; kernel preserved in scripts/patches/
-    # fused_encodec_kernel.patch, numbers in TODO.md round-5 record.
     h = _sconv(params["conv_in"], h, kernel=7, stride=1, causal=causal)
     for ratio, stage in zip(RATIOS, params["stages"]):
         # Stage boundary: follow the stage's weight dtype (no-op in
@@ -253,10 +214,6 @@ def _encodec_forward_jit(
         h = _res_block(stage["res"], h, causal)
         h = jax.nn.elu(h)
         h = _sconv(stage["down"], h, kernel=2 * ratio, stride=ratio, causal=causal)
-    # Recurrent-matmul operand dtype: bf16 on TPU (1 MXU pass; carry stays
-    # f32), f32 on CPU / under an explicit exact-f32 force — config knob
-    # FAD_TPU_LSTM_MATMUL (resolved at call time in encodec_forward);
-    # numbers in _slstm's docstring.
     h = _slstm(params["lstm"], h, op_dtype=lstm_op_dtype)
     h = jax.nn.elu(h)
     h = _sconv(params["conv_out"], h, kernel=7, stride=1, causal=causal)

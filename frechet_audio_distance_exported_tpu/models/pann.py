@@ -1,4 +1,4 @@
-"""PANN CNN14 embedding network (TPU-native re-implementation).
+"""PANN CNN14 embedding network (JAX re-implementation).
 
 Architecture spec from the reference PANNCore (reference:
 models/pann.py:152-273): bn0 BatchNorm over the 64 mel bins (applied via a

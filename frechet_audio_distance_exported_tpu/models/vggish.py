@@ -1,4 +1,4 @@
-"""VGGish embedding network (TPU-native re-implementation).
+"""VGGish embedding network (JAX re-implementation).
 
 Architecture spec from the reference VGGishCore (reference:
 models/vggish.py:40-95): VGG conv stack [64, M, 128, M, 256, 256, M, 512,

@@ -1,4 +1,4 @@
-// Native host runtime for the TPU FAD framework.
+// Native host runtime for the FAD framework.
 //
 // The reference leans on C internals of soundfile/resampy/numba for its host
 // data path (SURVEY.md §2); this library is the equivalent for this

@@ -1,12 +1,12 @@
-"""Core DSP building blocks, designed for the TPU MXU.
+"""Core DSP building blocks, formulated as dense matmuls.
 
 The reference computes STFTs with np.fft / librosa on the host
-(reference: models/vggish.py:125-141, models/pann.py:107-118). On TPU the
-idiomatic formulation is a *matmul-DFT*: the analysis window is folded into a
+(reference: models/vggish.py:125-141, models/pann.py:107-118). On an
+accelerator the formulation here is a *matmul-DFT*: the analysis window is folded into a
 dense [window, n_bins] cos/sin matrix so the whole frontend becomes
 framing (gather) -> one [T, W] x [W, 2F] matmul -> elementwise power/magnitude
--> one [T, F] x [F, M] mel matmul -> log. Every FLOP lands on the MXU and XLA
-fuses the elementwise stages into the matmuls.
+-> one [T, F] x [F, M] mel matmul -> log. Every FLOP is a dense matrix
+product and XLA fuses the elementwise stages around the matmuls.
 
 Host-side constant builders (float64 NumPy, cached per config):
 - periodic Hann window                 (reference: models/vggish.py:120-122)
@@ -184,7 +184,7 @@ def chunked_dft_matrices(window_length: int, fft_length: int, hop_length: int):
     i.e. framing becomes shifted views of a non-overlapping reshape and the
     whole STFT is M = ceil(W/hop) dense [T, hop] x [hop, F] matmuls — no
     [T, W] frame materialization, no gather. (The overlap-as-matmul-sum trick
-    keeps every FLOP on the MXU.)
+    keeps every FLOP in dense matrix products.)
     """
     cos_m, sin_m = windowed_dft_matrices(window_length, fft_length)
     num_chunks = -(-window_length // hop_length)
@@ -220,18 +220,16 @@ def stft_spectrum_strided(
     Requires S >= (num_frames + ceil(W/hop) - 1) * hop (callers bucket-pad
     anyway); excess samples are ignored.
 
-    Measured layout choices (scripts/exp_vggish_front.py / _front2.py, v5e,
-    B=256 vggish):
+    Layout choices:
     - cos|sin concatenated column-wise (always on): one [.., hop] x [hop, 2F]
       product per chunk instead of two — halves the LHS reads; per-column
-      results are bitwise identical to the split form. 42.11 -> 41.56 ms
-      full-step.
-    - ``single_matmul``: the ceil(W/hop) chunks concatenated on the LANE axis
-      into ONE [B, T, m*hop] operand and a single [m*hop, 2F] matmul, instead
-      of summing m separate matmul outputs — XLA cannot fuse across matmuls,
-      so the chunked sum materializes m [B, T, 2F] f32 outputs (~1.5 GB at
-      B=256); the frames concat costs one ~0.5 GB write. Frontend 8.09 ->
-      6.90 ms, full-step 41.5 -> 40.4 ms. The K-accumulation order changes,
+      results are bitwise identical to the split form.
+    - ``single_matmul``: the ceil(W/hop) chunks concatenated on the minor
+      axis into ONE [B, T, m*hop] operand and a single [m*hop, 2F] matmul,
+      instead of summing m separate matmul outputs — XLA does not fuse
+      across matmuls, so the chunked sum materializes m [B, T, 2F] f32
+      outputs (~1.5 GB at B=256); the frames concat costs one ~0.5 GB
+      write. The K-accumulation order changes,
       which is invisible on VGGish's offset-floored log-mel (~7e-6) but moves
       PANN/CLAP's floorless-dB quiet bins by 0.15-0.3 dB on pure-tone
       goldens (most of the reference's own 0.5 dB librosa-parity budget), so

@@ -141,7 +141,7 @@ def _polyphase_kernel(sr_orig: int, sr_new: int, filter: str):
     wing truncation at signal edges equals implicit zero padding, so padding
     the input makes every output use the full per-phase kernel — i.e. the
     whole resampler is ONE strided convolution [K, 1, p] with stride q. This
-    is the TPU/MXU path; numerics match the host algorithm to float32.
+    is the on-device path; numerics match the host algorithm to float32.
 
     Returns (kernel [K, 1, p], left_pad, q, p).
     """

@@ -8,7 +8,7 @@ Three layers, fastest to most reference-exact:
    (reference: fad.py:483-496) without ever gathering embeddings to host.
 2. **On-device Fréchet distance** — trace(sqrtm(Σ₁Σ₂)) via either a
    symmetric-eigendecomposition route (robust default) or a scaled
-   Newton–Schulz iteration (fast, MXU-only). Includes the reference's
+   Newton–Schulz iteration (fast, matmul-only). Includes the reference's
    eps-diagonal-offset retry semantics for singular products
    (reference: fad.py:538-544).
 3. **Host scipy path** — bit-for-bit the reference algorithm
@@ -47,6 +47,12 @@ class StreamingStats(NamedTuple):
     shift: jnp.ndarray  # [d]
 
 
+# Statistics stay full float32 on every backend: at DEFAULT/HIGH precision
+# XLA:GPU runs float32 products as TF32 (10-bit operand mantissa), which
+# would put ~1e-3 relative error into Σxxᵀ and the Fréchet epilogue.
+STATS_PRECISION = jax.lax.Precision.HIGHEST
+
+
 def init_stats(dim: int, dtype=jnp.float32, shift: Optional[jnp.ndarray] = None) -> StreamingStats:
     if shift is None:
         shift = jnp.zeros((dim,), dtype)
@@ -71,7 +77,9 @@ def update_stats(state: StreamingStats, x: jnp.ndarray, mask: jnp.ndarray) -> St
     return StreamingStats(
         n=state.n + jnp.sum(mask),
         s=state.s + jnp.sum(xc, axis=0),
-        ss=state.ss + jnp.matmul(xc.T, xc, preferred_element_type=jnp.float32),
+        ss=state.ss + jnp.matmul(
+            xc.T, xc, preferred_element_type=jnp.float32, precision=STATS_PRECISION
+        ),
         shift=state.shift,
     )
 
@@ -135,10 +143,11 @@ def _trace_sqrtm_product_eigh(sigma1: jnp.ndarray, sigma2: jnp.ndarray) -> jnp.n
     The eigenvalues of Σ₁Σ₂ equal those of the symmetric PSD matrix
     Σ₂^{1/2} Σ₁ Σ₂^{1/2}; two eighs keep everything real and clampable.
     """
+    mm = functools.partial(jnp.matmul, precision=STATS_PRECISION)
     w2, v2 = jnp.linalg.eigh(sigma2)
     sqrt_w2 = jnp.sqrt(jnp.maximum(w2, 0.0))
-    b_half = (v2 * sqrt_w2[None, :]) @ v2.T
-    inner = b_half @ sigma1 @ b_half
+    b_half = mm(v2 * sqrt_w2[None, :], v2.T)
+    inner = mm(mm(b_half, sigma1), b_half)
     inner = 0.5 * (inner + inner.T)
     w = jnp.linalg.eigvalsh(inner)
     return jnp.sum(jnp.sqrt(jnp.maximum(w, 0.0)))
@@ -150,9 +159,11 @@ def _trace_sqrtm_product_ns(
 ) -> jnp.ndarray:
     """trace(sqrtm(Σ₁Σ₂)) by scaled Newton–Schulz on A = Σ₂^{1/2}Σ₁Σ₂^{1/2}.
 
-    Pure matmuls (MXU speed-of-light); the symmetric PSD A is formed with an
+    Pure matmuls (no eigendecomposition kernel); the symmetric PSD A is formed with an
     NS square root of Σ₂ as well, so the whole path is eigendecomposition-free.
     """
+
+    mm = functools.partial(jnp.matmul, precision=STATS_PRECISION)
 
     def ns_sqrt(a):
         norm = jnp.sqrt(jnp.sum(a * a))
@@ -162,14 +173,14 @@ def _trace_sqrtm_product_ns(
 
         def body(_, yz):
             y, z = yz
-            t = 0.5 * (eye3 - z @ y)
-            return (y @ t, t @ z)
+            t = 0.5 * (eye3 - mm(z, y))
+            return (mm(y, t), mm(t, z))
 
         y, _ = jax.lax.fori_loop(0, num_iters, body, (y, z))
         return y * jnp.sqrt(norm)
 
     b_half = ns_sqrt(0.5 * (sigma2 + sigma2.T))
-    inner = b_half @ sigma1 @ b_half
+    inner = mm(mm(b_half, sigma1), b_half)
     inner = 0.5 * (inner + inner.T)
     s_half = ns_sqrt(inner)
     return jnp.trace(s_half)
@@ -354,4 +365,7 @@ def frechet_distance_jax(
             lambda: tr,
             lambda: _trace_sqrtm_product_eigh(sigma1 + eye, sigma2 + eye),
         )
-    return jnp.dot(diff, diff) + jnp.trace(sigma1) + jnp.trace(sigma2) - 2.0 * tr
+    return (
+        jnp.dot(diff, diff, precision=STATS_PRECISION)
+        + jnp.trace(sigma1) + jnp.trace(sigma2) - 2.0 * tr
+    )

@@ -1,15 +1,15 @@
-"""Sharded embedding + statistics: the fused multi-chip scoring step.
+"""Sharded embedding + statistics: the fused multi-device scoring step.
 
-This is the TPU-native replacement for the communication layer the reference
-lacks (SURVEY.md §5.8): shard the batch over a 1-D mesh with shard_map, run
-frontend + embedding network per shard, reduce the streaming statistics with
-psum over ICI, and (optionally) finish with the on-device Fréchet epilogue —
-one jitted program, no host round-trips, deterministic reduction order.
+This is the communication layer the reference lacks (SURVEY.md §5.8): shard
+the batch over a 1-D mesh with shard_map, run frontend + embedding network
+per shard, reduce the streaming statistics with psum across devices, and
+(optionally) finish with the on-device Fréchet epilogue — one jitted
+program, no host round-trips, deterministic reduction order.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable
 
 import jax
 import jax.numpy as jnp
@@ -18,45 +18,14 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..ops import stats as stats_ops
 from .mesh import DATA_AXIS
 
-try:  # jax >= 0.7 public API
-    import inspect
-
-    from jax import shard_map as _shard_map
-
-    # check_vma=False opt-out: jax 0.9's varying-across-mesh-axes lint
-    # rejects any pallas_call whose out_shape ShapeDtypeStruct lacks a vma
-    # annotation (pallas_call.py:_convert_out_shape_to_aval), which would
-    # break every fused kernel run per-shard (frontends, window attention).
-    # Scoped (ADVICE r3): only the pallas_call-bearing frontend+model cores
-    # (pipeline._mesh_wrap) disable the lint; plain-jnp bodies like the
-    # statistics reduction below keep it, so a future in_specs/out_specs
-    # mistake there is still caught.
-    _HAS_VMA = "check_vma" in inspect.signature(_shard_map).parameters
-
-    def shard_map(f, mesh, in_specs, out_specs, check_vma=True):
-        kw = {"check_vma": False} if (_HAS_VMA and not check_vma) else {}
-        return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **kw)
-
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_old
-
-    def shard_map(f, mesh, in_specs, out_specs, check_vma=True):
-        # Map the opt-out to the legacy lint (check_rep): dropping it would
-        # reintroduce the replication-check failure on pallas_call-bearing
-        # bodies that check_vma=False exists to prevent (review r5).
-        return _shard_map_old(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_rep=check_vma
-        )
-
 
 def make_sharded_embed_stats(
     mesh: Mesh, model_fn: Callable, check_vma: bool = True
 ) -> Callable[[dict, jnp.ndarray, jnp.ndarray], stats_ops.StreamingStats]:
     """Build fn(params, rows, mask) -> StreamingStats, batch sharded over 'data'.
 
-    Pass check_vma=False when ``model_fn`` contains a pallas_call (fused
-    frontend / window-attention kernels on TPU) — jax 0.9's vma lint rejects
-    those per-shard; plain-jnp models keep the lint.
+    Pass check_vma=False when ``model_fn`` trips jax's varying-manual-axes
+    lint (the EnCodec LSTM's scan carry does); other models keep the lint.
 
     ``rows`` [B, ...] are model inputs (patches / log-mels / waveforms),
     ``mask`` [B] zeroes padded rows. The statistics are psum-reduced and
@@ -80,14 +49,18 @@ def make_sharded_embed_stats(
         mu = s_raw / jnp.maximum(n, 1.0)
         emb_c = jnp.where(mask[:, None] > 0, emb - mu, 0.0)
         ss = jax.lax.psum(
-            jnp.matmul(emb_c.T, emb_c, preferred_element_type=jnp.float32), DATA_AXIS
+            jnp.matmul(
+                emb_c.T, emb_c, preferred_element_type=jnp.float32,
+                precision=stats_ops.STATS_PRECISION,
+            ),
+            DATA_AXIS,
         )
         s_c = s_raw - n * mu  # == 0 up to rounding; keeps finalize_stats exact
         return n, s_c, ss, mu
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         _local,
-        mesh,
+        mesh=mesh,
         in_specs=(P(), P(DATA_AXIS), P(DATA_AXIS)),
         out_specs=(P(), P(), P(), P()),
         check_vma=check_vma,

@@ -1,11 +1,11 @@
 """Device mesh construction for data-parallel FAD.
 
 The reference has no distributed layer at all (SURVEY.md §2, §5.8) — its only
-concurrency is a decode thread pool. The TPU-native equivalent is a 1-D
-``Mesh`` over chips: the per-file/per-patch batch is sharded over the 'data'
-axis with shard_map, and the streaming (N, Σx, Σxxᵀ) accumulators are
-psum-reduced over ICI. Multi-host pods extend the same mesh via
-jax.distributed (initialize() before calling data_mesh()).
+concurrency is a decode thread pool. Here a 1-D ``Mesh`` spans the devices:
+the per-file/per-patch batch is sharded over the 'data' axis with shard_map,
+and the streaming (N, Σx, Σxxᵀ) accumulators are psum-reduced across devices.
+Multi-host runs extend the same mesh via jax.distributed (initialize() before
+calling data_mesh()).
 """
 
 from __future__ import annotations
@@ -36,11 +36,11 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Multi-host (pod) initialization over DCN via jax.distributed.
+    """Multi-host initialization via jax.distributed.
 
-    Call once per host before data_mesh(); afterwards jax.devices() spans the
-    pod and the same shard_map/psum programs scale across hosts. Arguments
-    default to the standard JAX_COORDINATOR_ADDRESS / cloud-TPU autodetection.
+    Call once per process before data_mesh(); afterwards jax.devices() spans
+    every process and the same shard_map/psum programs scale across hosts.
+    Pass all three arguments where no cluster environment announces them.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

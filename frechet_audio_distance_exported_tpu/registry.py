@@ -1,6 +1,6 @@
 """Model registry: names, sample rates, embedding dims, weight artifacts.
 
-TPU-native re-design of the reference registry (reference: fad.py:95-130).
+Re-design of the reference registry (reference: fad.py:95-130).
 The reference maps model names to torch .pt2/.pt artifacts downloaded from
 GitHub releases; here each model maps to a .npz weight bundle (converted once
 from the reference artifacts by tools/extract_weights.py) that is loaded into

@@ -332,6 +332,29 @@ def list_audio_files(directory: str) -> List[str]:
     return [f for f in os.listdir(directory) if not f.startswith(".")]
 
 
+class _NoProgress:
+    """Stand-in for a tqdm bar when none is shown."""
+
+    def update(self, n: int = 1) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def progress_bar(total: int, desc: str | None = None, show: bool = True):
+    """A tqdm progress bar when ``show`` is set and tqdm can be imported,
+    else a no-op bar: tqdm is optional, and scoring never needs it."""
+    if show:
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            pass
+        else:
+            return tqdm(total=total, desc=desc)
+    return _NoProgress()
+
+
 def load_audio_files(
     directory: str,
     sample_rate: int,
@@ -342,10 +365,8 @@ def load_audio_files(
 ) -> List[np.ndarray]:
     """Load every non-hidden file in ``directory`` with a thread pool
     (reference: fad.py:557-591)."""
-    from tqdm import tqdm
-
     files = list_audio_files(directory)
-    pbar = tqdm(total=len(files), disable=(not verbose))
+    pbar = progress_bar(len(files), show=verbose)
 
     def update(*_):
         pbar.update()

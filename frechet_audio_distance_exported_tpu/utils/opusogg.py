@@ -52,7 +52,7 @@ def _opus() -> Optional[ctypes.CDLL]:
     # opus_encoder_ctl is variadic; the request used here passes one pointer.
     # This fixed declaration matches the SysV/AAPCS64 Linux ABIs (variadic
     # and fixed args share registers); Darwin/arm64 would need libffi's
-    # variadic support instead — out of scope for this TPU-Linux target.
+    # variadic support instead — out of scope for this Linux target.
     lib.opus_encoder_ctl.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.opus_encoder_create.restype = ctypes.c_void_p
     lib.opus_encoder_create.argtypes = [

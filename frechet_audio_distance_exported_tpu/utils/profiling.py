@@ -1,8 +1,8 @@
 """Tracing & profiling utilities.
 
 The reference has no tracing/profiling at all — only tqdm bars and verbose
-prints (SURVEY.md §5.1; reference: fad.py:317, 571). This module supplies the
-TPU-native equivalents:
+prints (SURVEY.md §5.1; reference: fad.py:317, 571). This module supplies
+the device-aware equivalents:
 
 - ``stage_timer`` — lightweight per-stage wall timing with a report
 - ``trace`` — jax.profiler trace context (TensorBoard-viewable) gated by an

@@ -1,11 +1,8 @@
 #!/usr/bin/env python
-"""Stress the shipped TPU dtype defaults across FAD score magnitudes.
+"""Stress dtype and precision settings across FAD score magnitudes.
 
-VERDICT r3 weak #6: the bf16 platform default (vggish/pann/clap), the
-encodec mixed-precision split, and the bf16-operand LSTM default were each
-accepted on ONE synthetic pair. This sweep runs the full shipped pipeline
-(fused frontends + fused attention + platform dtypes) against the forced
-exact path (FAD_TPU_PRECISION=highest + FAD_TPU_MODEL_DTYPE=float32 — XLA
+This sweep runs the full shipped pipeline (at the current env settings)
+against the forced exact path (FAD_TPU_PRECISION=highest + FAD_TPU_MODEL_DTYPE=float32 — XLA
 chunk-sum frontends, f32 model, f32 LSTM operands) over pairs whose true
 FAD spans several decades, and records the worst |delta| (abs and relative)
 per family.
@@ -15,11 +12,10 @@ Pairs: eval audio interpolates between "same distribution as background"
 the alpha grid spans ~4 decades of score.
 
 encodec-48k additionally measures the full-mixed opt-in
-(FAD_TPU_MODEL_DTYPE=bfloat16) whose single-probe delta (8.3e-4 rel) drove
-the f32 default decision.
+(FAD_TPU_MODEL_DTYPE=bfloat16).
 
 Usage: python scripts/exp_dtype_magnitude_sweep.py [--families vggish,...]
-(TPU; run as the only TPU process, background task, internal alarm.)
+(run as the only process on the GPU.)
 """
 
 from __future__ import annotations

@@ -194,7 +194,7 @@ class TestEndToEndVGGish:
 
     def test_batching_invariance(self, fad, sine_audio):
         """Embeddings are identical whether files go through together or alone
-        (the TPU pipeline's bucketing must not change numerics)."""
+        (the pipeline's bucketing must not change numerics)."""
         a = sine_audio(2.0, 440.0)
         b = sine_audio(4.3, 660.0)
         joint = fad.get_embeddings([a, b], 16000)

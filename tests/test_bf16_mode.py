@@ -57,15 +57,14 @@ def test_corrupt_bundle_raises_actionable_error(tmp_path):
 
 
 def test_model_dtype_platform_default(monkeypatch):
-    """Unset, the model dtype is platform-aware: float32 on CPU (this test
-    harness), bfloat16 on TPU (measured within the parity bar, PARITY.md).
-    The env var forces either."""
+    """Unset, the model dtype is float32 (one policy for every platform,
+    config.py). The env var forces either."""
     import jax.numpy as jnp
 
     from frechet_audio_distance_exported_tpu.config import model_dtype
 
     monkeypatch.delenv("FAD_TPU_MODEL_DTYPE", raising=False)
-    assert model_dtype() == jnp.float32  # cpu backend here
+    assert model_dtype() == jnp.float32
     monkeypatch.setenv("FAD_TPU_MODEL_DTYPE", "bfloat16")
     assert model_dtype() == jnp.bfloat16
     monkeypatch.setenv("FAD_TPU_MODEL_DTYPE", "float32")
@@ -87,8 +86,8 @@ def test_model_dtype_rejects_typos(monkeypatch):
 def test_lstm_op_dtype_resolution(monkeypatch):
     """The Encodec recurrent-matmul operand dtype: env override wins; an
     explicit full-f32 force (FAD_TPU_MODEL_DTYPE=float32 or
-    FAD_TPU_PRECISION=highest) keeps it float32; typos raise; the platform
-    default is float32 on CPU (this harness) / bfloat16 on TPU."""
+    FAD_TPU_PRECISION=highest) keeps it float32; typos raise; the default
+    is float32."""
     import jax.numpy as jnp
     import pytest as _pytest
 
@@ -96,7 +95,7 @@ def test_lstm_op_dtype_resolution(monkeypatch):
 
     for var in ("FAD_TPU_LSTM_MATMUL", "FAD_TPU_MODEL_DTYPE", "FAD_TPU_PRECISION"):
         monkeypatch.delenv(var, raising=False)
-    assert lstm_op_dtype() == jnp.float32  # cpu backend here
+    assert lstm_op_dtype() == jnp.float32
     monkeypatch.setenv("FAD_TPU_LSTM_MATMUL", "bf16")
     assert lstm_op_dtype() == jnp.bfloat16
     # The explicit knob outranks the full-f32 forces.
@@ -113,36 +112,8 @@ def test_lstm_op_dtype_resolution(monkeypatch):
         lstm_op_dtype()
 
 
-def test_attn_env_resolution(monkeypatch):
-    """_resolve_attn's env contract (code-review r5): typos raise instead of
-    silently keeping the fused kernels on; the UNSET default reverts to the
-    exact XLA assembly under an exactness force (the kernels' dots run
-    Mosaic DEFAULT); an explicit opt-in beats the force (the frontend
-    wrappers' precedence)."""
-    import jax
-    import pytest as _pytest
-
-    from frechet_audio_distance_exported_tpu.models import clap
-
-    for name in ("FAD_TPU_FUSED_ATTN", "FAD_TPU_FUSED_BLOCK", "FAD_TPU_PRECISION"):
-        monkeypatch.delenv(name, raising=False)
-    monkeypatch.setenv("FAD_TPU_FUSED_ATTN", "flase")  # the typo class
-    with _pytest.raises(ValueError, match="FAD_TPU_FUSED_ATTN"):
-        clap._resolve_attn("auto")
-    monkeypatch.delenv("FAD_TPU_FUSED_ATTN")
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert clap._resolve_attn("auto") == "fused_block"
-    monkeypatch.setenv("FAD_TPU_PRECISION", "highest")
-    assert clap._resolve_attn("auto") == "xla"  # unset default under a force
-    monkeypatch.setenv("FAD_TPU_FUSED_ATTN", "1")
-    assert clap._resolve_attn("auto") == "fused_block"  # explicit beats force
-    monkeypatch.setenv("FAD_TPU_FUSED_BLOCK", "0")
-    assert clap._resolve_attn("auto") == "fused"
-
-
 def test_clap_env_flip_retraces(monkeypatch):
-    """FAD_TPU_PRECISION / the attn knobs resolve at call time and sit in
+    """FAD_TPU_PRECISION resolves at call time and sits in
     clap_forward's jit key — a mid-process flip must add a trace-cache entry
     instead of reusing the stale branch (code-review r5; on CPU outputs can
     be bitwise-equal, so assert the mechanism)."""
@@ -164,25 +135,47 @@ def test_clap_env_flip_retraces(monkeypatch):
     np.testing.assert_allclose(hi, base, rtol=0, atol=1e-5)
 
 
-def test_attn_mode_is_a_static_arg_not_a_global():
-    """The attention implementation is threaded through clap_forward as a
-    static argument ('auto'/'fused'/'xla') — no process-wide mesh global, so
-    meshed and unmeshed CLAP pipelines can coexist in one process. Under a
-    mesh the pipeline rebuilds its frontend+model core shard_map-wrapped
-    (pipeline._core; the fused kernels run per-shard) and set_mesh(None)
-    restores plain cores."""
+def test_pipeline_programs_rekey_on_precision_flip(monkeypatch):
+    """The fused chunk programs trace the frontends and models inside one
+    outer jit, so a FAD_TPU_PRECISION flip reaches them only through the
+    memoized core's key: a core shared across settings kept serving the
+    program traced under the old precision."""
     import jax
-    import pytest as _pytest
+
+    from frechet_audio_distance_exported_tpu import pipeline as pl
+    from frechet_audio_distance_exported_tpu.models.vggish import init_vggish_params
+
+    monkeypatch.delenv("FAD_TPU_PRECISION", raising=False)
+    pipe = pl.EmbeddingPipeline("vggish", init_vggish_params(jax.random.PRNGKey(0)))
+    clips = [np.random.default_rng(0).standard_normal(16000).astype(np.float32) * 0.1]
+    pipe.embed_files(clips, 16000)
+    core0, size0 = pipe._core("vggish", 1), pl._fused_vggish_step._cache_size()
+    monkeypatch.setenv("FAD_TPU_PRECISION", "highest")
+    assert pipe._core("vggish", 1) is not core0
+    pipe.embed_files(clips, 16000)
+    assert pl._fused_vggish_step._cache_size() > size0, "precision flip reused the stale program"
+    enc = pl.EmbeddingPipeline("encodec-24k", params={})
+    enc_hi = enc._core("encodec")
+    monkeypatch.delenv("FAD_TPU_PRECISION")
+    assert pipe._core("vggish", 1) is core0  # back to the original program
+    assert enc._core("encodec") is not enc_hi
+
+
+def test_attn_mode_is_a_static_arg_not_a_global():
+    """No process-wide mesh or attention global: clap_forward takes only
+    params and log-mels, so meshed and unmeshed CLAP pipelines coexist in
+    one process. Under a mesh the pipeline rebuilds its frontend+model core
+    shard_map-wrapped (pipeline._core) and set_mesh(None) restores the
+    plain cores."""
+    import inspect
+
+    import jax
 
     from frechet_audio_distance_exported_tpu.models import clap
     from frechet_audio_distance_exported_tpu.parallel.mesh import data_mesh
     from frechet_audio_distance_exported_tpu.pipeline import EmbeddingPipeline
 
-    assert clap._resolve_attn("fused") == "fused"
-    assert clap._resolve_attn("fused_block") == "fused_block"
-    assert clap._resolve_attn("xla") == "xla"
-    with _pytest.raises(ValueError, match="attn"):
-        clap._resolve_attn("fast")
+    assert list(inspect.signature(clap.clap_forward).parameters) == ["params", "log_mel"]
 
     pipe = EmbeddingPipeline("clap", clap.init_clap_params(jax.random.PRNGKey(0)))
     key = ("mel", 48000, 1001, 32767.0)

@@ -1,6 +1,6 @@
 """Golden tests for the matmul-DFT / mel DSP blocks.
 
-Each JAX/MXU formulation is checked against an independent NumPy+FFT
+Each JAX matmul formulation is checked against an independent NumPy+FFT
 implementation written here from the published definitions (VGGish HTK
 frontend per Google's vggish_input math; librosa-style power mel per the
 librosa documentation formulas). The VGGish end-to-end frontend is also
@@ -197,10 +197,7 @@ def test_vggish_frontend_matches_committed_golden(sine_audio):
 
 
 def test_strided_stft_matches_gather_framing():
-    """The gather-free STFT equals the direct framed formulation.
-
-    (Moved from the removed test_pallas_logmel.py — this checks shipped dsp
-    code, not the rejected kernel.)"""
+    """The gather-free STFT equals the direct framed formulation."""
     import jax.numpy as jnp
 
     from frechet_audio_distance_exported_tpu.ops import dsp

@@ -49,8 +49,9 @@ def test_all_failed_returns_empty(fad, sine_audio):
 
 
 class TestHBMScale:
-    """hbm_batch_scale: the v5e-fitted batch knees divide 2x per halving of
-    reported HBM (VERDICT r3 weak #7 — no graceful degradation before)."""
+    """hbm_batch_scale: the default batches divide 2x per halving of the
+    device memory limit below what they need (_KNEE_HBM_BYTES; VERDICT r3
+    weak #7 — no graceful degradation before)."""
 
     @pytest.fixture(autouse=True)
     def _fresh_cache(self):
@@ -72,23 +73,29 @@ class TestHBMScale:
     def test_noop_at_measurement_hbm(self, monkeypatch):
         from frechet_audio_distance_exported_tpu import pipeline as pl
 
-        monkeypatch.setattr(pl, "_device_hbm_bytes", lambda: 15 * 2**30)
+        monkeypatch.setattr(pl, "_device_hbm_bytes", lambda: pl._KNEE_HBM_BYTES)
+        assert pl.hbm_batch_scale() == 1
+        monkeypatch.setattr(pl, "_device_hbm_bytes", lambda: 60 * 2**30)
+        pl.hbm_batch_scale.cache_clear()
         assert pl.hbm_batch_scale() == 1
 
+    # gib: the device limit as a fraction of _KNEE_HBM_BYTES, in 16ths.
     @pytest.mark.parametrize("gib,expect", [(8, 2), (4, 4), (2, 8), (1, 16), (0.25, 16)])
     def test_divides_per_halving(self, monkeypatch, gib, expect):
         from frechet_audio_distance_exported_tpu import pipeline as pl
 
-        monkeypatch.setattr(pl, "_device_hbm_bytes", lambda: int(gib * 2**30))
+        monkeypatch.setattr(
+            pl, "_device_hbm_bytes", lambda: int(gib / 16 * pl._KNEE_HBM_BYTES)
+        )
         assert pl.hbm_batch_scale() == expect
         assert pl.pann_frame_cap() == pl.PANN_MAX_FRAMES // expect
 
     def test_default_file_batch_scales(self, monkeypatch):
         from frechet_audio_distance_exported_tpu import pipeline as pl
 
-        monkeypatch.setattr(pl, "_device_hbm_bytes", lambda: 4 * 2**30)
+        monkeypatch.setattr(pl, "_device_hbm_bytes", lambda: pl._KNEE_HBM_BYTES // 4)
         p = pl.EmbeddingPipeline("vggish", params={})
-        # CPU default is 32; at 4 GiB the divisor is 4 -> 8.
+        # The default is 32; at a quarter of the knee the divisor is 4 -> 8.
         assert p.file_batch == 8
 
     def test_explicit_file_batch_unscaled(self, monkeypatch):

@@ -118,7 +118,7 @@ class TestClapVsTransformers:
             res, heads = clap_mod._STAGE_RES[i], clap_mod.NUM_HEADS[i]
             for j, blk in enumerate(stage["blocks"]):
                 shift = 0 if (j % 2 == 0 or res <= clap_mod.WINDOW_SIZE) else clap_mod.WINDOW_SIZE // 2
-                h = clap_mod._swin_block(blk, h, res, heads, shift, mode="xla")
+                h = clap_mod._swin_block(blk, h, res, heads, shift)
             if "downsample" in stage:
                 h = clap_mod._patch_merging(stage["downsample"], h, res)
         h = common.layer_norm(h, **params["norm"])
